@@ -10,7 +10,10 @@ import time
 import numpy as np
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR", "/root/repo/.jax_cache")
+
+from extractorb.utils.compile_cache import enable_compile_cache  # noqa: E402
+
+enable_compile_cache()
 
 REFERENCE_PIC = "/root/reference/pic"
 LUNA = os.path.join(REFERENCE_PIC, "luna.jpg")
@@ -49,7 +52,7 @@ def default_parser(desc: str, image: str = LUNA) -> argparse.ArgumentParser:
 
 def orb_config(args, default_features: int):
     """ORBConfig honoring the --features fast-mode override."""
-    from extractorb_tpu.config import ORBConfig
+    from extractorb.config import ORBConfig
 
     n = args.features if getattr(args, "features", None) else default_features
     # shrink the padded per-level capacity with the budget: compile time

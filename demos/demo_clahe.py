@@ -15,7 +15,7 @@ def main():
 
     import jax.numpy as jnp
 
-    from extractorb_tpu.utils.clahe import clahe
+    from extractorb.utils.clahe import clahe
 
     out = np.asarray(clahe(jnp.asarray(img)))  # compile
     with timer("CLAHE (device)"):

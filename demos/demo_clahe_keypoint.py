@@ -18,8 +18,8 @@ def main():
     import jax.numpy as jnp
 
     from _common import orb_config
-    from extractorb_tpu.frontend.extractor import ORBExtractor
-    from extractorb_tpu.utils.clahe import clahe
+    from extractorb.frontend.extractor import ORBExtractor
+    from extractorb.utils.clahe import clahe
 
     cfg = orb_config(args, 1500)
     ext = ORBExtractor(cfg, octree="device")
@@ -33,7 +33,7 @@ def main():
     print(f"keypoints CLAHE image: {n_enh}")
 
     if args.out:
-        from extractorb_tpu.viz import FrameDrawer
+        from extractorb.viz import FrameDrawer
 
         fd = FrameDrawer()
         fd.update(img, np.asarray(f_raw.xy), np.asarray(f_raw.valid))

@@ -18,10 +18,10 @@ def main():
     import jax.numpy as jnp
 
     from _common import orb_config
-    from extractorb_tpu.frontend import fast as ffast
-    from extractorb_tpu.frontend import octree as foct
-    from extractorb_tpu.frontend import pyramid as fpyr
-    from extractorb_tpu.frontend.pyramid import EDGE_THRESHOLD
+    from extractorb.frontend import fast as ffast
+    from extractorb.frontend import octree as foct
+    from extractorb.frontend import pyramid as fpyr
+    from extractorb.frontend.pyramid import EDGE_THRESHOLD
 
     cfg = orb_config(args, 1000)  # the oct_tree demo's budget
     budgets = cfg.features_per_level

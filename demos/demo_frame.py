@@ -23,9 +23,9 @@ def main():
     import jax.numpy as jnp
 
     from _common import orb_config
-    from extractorb_tpu.core.camera import KannalaBrandt8
-    from extractorb_tpu.frontend import grid as fg
-    from extractorb_tpu.frontend.extractor import ORBExtractor
+    from extractorb.core.camera import KannalaBrandt8
+    from extractorb.frontend import grid as fg
+    from extractorb.frontend.extractor import ORBExtractor
 
     cfg = orb_config(args, 1500)
     ext = ORBExtractor(cfg, octree="device")
@@ -61,7 +61,7 @@ def main():
           f"max {int(np.asarray(counts).max())} kps/cell")
 
     # BoW transform (Frame::ComputeBoW, src/Frame.cc:739-746)
-    from extractorb_tpu.place.vocab import Vocabulary, load_orbvoc_text
+    from extractorb.place.vocab import Vocabulary, load_orbvoc_text
 
     desc = np.asarray(feats.desc)
     if args.vocab and args.vocab.endswith(".txt"):

@@ -33,9 +33,9 @@ def main():
     import jax.numpy as jnp
 
     from _common import orb_config
-    from extractorb_tpu.frontend import matcher as fm
-    from extractorb_tpu.frontend.extractor import ORBExtractor
-    from extractorb_tpu.geometry import two_view
+    from extractorb.frontend import matcher as fm
+    from extractorb.frontend.extractor import ORBExtractor
+    from extractorb.geometry import two_view
 
     cfg = orb_config(args, 1500)
     ext = ORBExtractor(cfg, octree="device")

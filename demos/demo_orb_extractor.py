@@ -19,8 +19,8 @@ def main():
     import jax.numpy as jnp
 
     from _common import orb_config
-    from extractorb_tpu.frontend.extractor import ORBExtractor
-    from extractorb_tpu.utils.clahe import clahe
+    from extractorb.frontend.extractor import ORBExtractor
+    from extractorb.utils.clahe import clahe
 
     # CLAHE timing (reference main_orb_extractor.cpp:19-25)
     jimg = jnp.asarray(img)
@@ -53,7 +53,7 @@ def main():
         print(f"OpenCV oracle unavailable: {e}")
 
     if args.out:
-        from extractorb_tpu.viz import FrameDrawer
+        from extractorb.viz import FrameDrawer
 
         fd = FrameDrawer()
         fd.update(img, np.asarray(feats.xy), valid, state="OK")

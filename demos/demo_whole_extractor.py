@@ -19,7 +19,7 @@ def main():
     import jax.numpy as jnp
 
     from _common import orb_config
-    from extractorb_tpu.frontend.extractor import ORBExtractor
+    from extractorb.frontend.extractor import ORBExtractor
 
     cfg = orb_config(args, 1000)
     ext = ORBExtractor(cfg, octree="host")  # reference-exact distribution

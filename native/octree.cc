@@ -4,7 +4,7 @@
 // (reference: ORBextractor::DistributeOctTree, src/orb_extractor/
 // ORBextractor.cc:544-771 and ExtractorNode::DivideNode :486-542).
 // The algorithm is inherently sequential (list mutation, largest-first
-// final stage), so the host-exact path runs natively; the TPU pipeline
+// final stage), so the host-exact path runs natively; the device pipeline
 // uses the shape-static device approximation in frontend/octree.py.
 //
 // Ordering spec: the reference's final stage sorts (size, node*) pairs,

@@ -6,9 +6,9 @@ to keyframes created during the solve, LoopClosing.cc:1013+231 and
 import numpy as np
 import pytest
 
-from extractorb_tpu.slam.loop_closing import LoopCloser, LoopThresholds
-from extractorb_tpu.slam.map import KeyFrame
-from extractorb_tpu.place.vocab import Vocabulary
+from extractorb.slam.loop_closing import LoopCloser, LoopThresholds
+from extractorb.slam.map import KeyFrame
+from extractorb.place.vocab import Vocabulary
 
 from test_loop_closing import build_looped_map, make_features, project
 

@@ -6,8 +6,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from extractorb_tpu.config import CameraConfig
-from extractorb_tpu.core.camera import (
+from extractorb.config import CameraConfig
+from extractorb.core.camera import (
     KannalaBrandt8,
     Pinhole,
     distort_points_pinhole,

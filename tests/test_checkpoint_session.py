@@ -2,21 +2,20 @@
 boost::serialization graph in inc/KeyFrame.h:56-146 + SaveAtlas/
 LoadAtlas, inc/System.h:180-186)."""
 
-import cv2
 import numpy as np
 import pytest
 import jax.numpy as jnp
 
-from extractorb_tpu.config import (
+from extractorb.config import (
     CameraConfig, IMUConfig, ORBConfig, SLAMConfig, TrackingConfig,
 )
-from extractorb_tpu.imu import preintegration as pre
-from extractorb_tpu.slam import checkpoint as ckpt
-from extractorb_tpu.slam.map import KeyFrame, SLAMMap
-from extractorb_tpu.slam.system import System
-from extractorb_tpu.slam.tracking import TrackState
+from extractorb.imu import preintegration as pre
+from extractorb.slam import checkpoint as ckpt
+from extractorb.slam.map import KeyFrame, SLAMMap
+from extractorb.slam.system import System
+from extractorb.slam.tracking import TrackState
 
-from test_slam_e2e import render_sequence, W, H
+from extractorb.sim.scenes import H, W, render_sequence
 from test_loop_closing import make_features
 
 
@@ -79,12 +78,11 @@ def test_keyframe_full_roundtrip(tmp_path, rng):
 
 
 @pytest.mark.slow
-def test_session_resume_keeps_tracking(luna_gray, tmp_path):
+def test_session_resume_keeps_tracking(scene_texture, tmp_path):
     """Stop a monocular session mid-sequence, reload it into a fresh
     Tracker, and keep tracking the remaining frames without going LOST
     — the resumed run must keep extending the same trajectory."""
-    tex = cv2.resize(luna_gray, (1024, 1024))
-    frames, poses = render_sequence(tex, n_frames=14)
+    frames, poses = render_sequence(scene_texture, n_frames=14)
     cfg = SLAMConfig(
         orb=ORBConfig(n_features=1000),
         camera=CameraConfig(fx=500.0, fy=500.0, cx=320.0, cy=240.0,

@@ -18,7 +18,7 @@ _ENV = dict(
     os.environ,
     JAX_PLATFORMS="cpu",
     XLA_FLAGS="--xla_force_host_platform_device_count=1",
-    JAX_COMPILATION_CACHE_DIR="/root/repo/.jax_cache_cpu",
+    JAX_COMPILATION_CACHE_DIR=os.path.join(REPO, ".jax_cache_cpu"),
 )
 
 

@@ -5,10 +5,10 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from extractorb_tpu.core import lie
-from extractorb_tpu.dist import mesh as dmesh
-from extractorb_tpu.dist import sharded_ba as dba
-from extractorb_tpu.solver import ba as sba
+from extractorb.core import lie
+from extractorb.dist import mesh as dmesh
+from extractorb.dist import sharded_ba as dba
+from extractorb.solver import ba as sba
 
 from test_solver import FX, FY, CX, CY, project, make_ba_scene
 
@@ -81,7 +81,7 @@ def test_sharded_reduces_error(rng):
 def _ring_pose_graph(rng, K=24, E_pad=64):
     """Noisy Sim3 ring: K poses on a circle, chain + a few chords, with
     drift injected; returns a padded PoseGraphProblem."""
-    from extractorb_tpu.solver import pose_graph as pg
+    from extractorb.solver import pose_graph as pg
 
     ang = np.linspace(0, 2 * np.pi, K, endpoint=False)
     R_gt, t_gt = [], []
@@ -134,8 +134,8 @@ def _ring_pose_graph(rng, K=24, E_pad=64):
 def test_sharded_pose_graph_matches_single(rng):
     """Edge-sharded essential-graph GN equals the single-device solver
     (SURVEY §5.7: pose graph shards edges, psum-reduces the system)."""
-    from extractorb_tpu.dist import sharded_pose_graph as dpg
-    from extractorb_tpu.solver import pose_graph as pg
+    from extractorb.dist import sharded_pose_graph as dpg
+    from extractorb.solver import pose_graph as pg
 
     prob, R_gt, t_gt = _ring_pose_graph(rng)
     R1, t1, s1, c1 = pg.optimize_pose_graph(prob, n_iters=10)
@@ -153,7 +153,7 @@ def test_sharded_pose_graph_matches_single(rng):
 def test_kf_block_sharding_roundtrip(rng):
     """KF-axis sharded place scores + all_gather covisibility fetch
     (SURVEY §5.7: covisibility fetch = all_gather of candidate blocks)."""
-    from extractorb_tpu.dist import kf_blocks as kfb
+    from extractorb.dist import kf_blocks as kfb
 
     mesh = dmesh.make_mesh(8)
     K, W, N = 24, 64, 32
@@ -191,7 +191,7 @@ def test_kf_block_sharding_roundtrip(rng):
 def test_sharded_loop_candidate_match(rng):
     """Distributed whole-database descriptor matching: the KF holding a
     copy of the query's descriptors wins."""
-    from extractorb_tpu.dist import kf_blocks as kfb
+    from extractorb.dist import kf_blocks as kfb
 
     mesh = dmesh.make_mesh(8)
     K, N = 16, 64
@@ -311,7 +311,7 @@ def test_vi_sharded_matches_single(rng):
     import sys as _sys
     _sys.path.insert(0, "tests")
     from test_inertial import _vi_problem
-    from extractorb_tpu.solver import inertial as vi
+    from extractorb.solver import inertial as vi
 
     prob, vproject, (Rwb, twb, v, pts) = _vi_problem(
         np.random.default_rng(3), n_kf=6, n_pts=128, perturb=1.0

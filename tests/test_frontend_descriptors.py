@@ -10,7 +10,7 @@ import numpy as np
 import pytest
 import jax.numpy as jnp
 
-from extractorb_tpu.frontend import (
+from extractorb.frontend import (
     blur as fblur,
     brief as fbrief,
     extractor as fext,
@@ -18,7 +18,7 @@ from extractorb_tpu.frontend import (
     orientation as forient,
     pyramid as fpyr,
 )
-from extractorb_tpu.config import ORBConfig
+from extractorb.config import ORBConfig
 
 
 def test_fast_atan2_matches_cv2(rng):
@@ -183,8 +183,8 @@ def test_device_octree_spatial_distribution(luna_gray):
 
 def test_native_octree_matches_python(luna_gray, rng):
     """The C++ DistributeOctTree must agree with the python-exact one."""
-    from extractorb_tpu.frontend import octree as foct
-    from extractorb_tpu.native import distribute_octree_native
+    from extractorb.frontend import octree as foct
+    from extractorb.native import distribute_octree_native
 
     n = 3000
     xs = rng.uniform(16, 480, n).astype(np.float32)
@@ -200,22 +200,19 @@ def test_native_octree_matches_python(luna_gray, rng):
 
 
 @pytest.mark.slow
-def test_device_vs_host_octree_tracking_ate(luna_gray):
+def test_device_vs_host_octree_tracking_ate(scene_texture):
     """Downstream acceptance: the synthetic-sequence ATE with the
     device octree must match the host-exact octree path (reference
     distribution semantics ORBextractor.cc:544-771) within tolerance."""
     import dataclasses as dc
 
-    from test_slam_e2e import render_sequence, umeyama_align, W, H
-    from extractorb_tpu.config import (
+    from extractorb.sim.scenes import H, W, render_sequence, umeyama_align
+    from extractorb.config import (
         CameraConfig, SLAMConfig, TrackingConfig,
     )
-    from extractorb_tpu.slam.system import System
+    from extractorb.slam.system import System
 
-    import cv2
-
-    tex = cv2.resize(luna_gray, (1024, 1024))
-    frames, poses = render_sequence(tex, n_frames=12)
+    frames, poses = render_sequence(scene_texture, n_frames=12)
 
     def ate_for(octree):
         cfg = SLAMConfig(

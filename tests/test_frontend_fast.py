@@ -6,8 +6,8 @@ import cv2
 import numpy as np
 import pytest
 
-from extractorb_tpu.frontend import fast as ffast
-from extractorb_tpu.frontend import pyramid as fpyr
+from extractorb.frontend import fast as ffast
+from extractorb.frontend import pyramid as fpyr
 
 import jax.numpy as jnp
 

@@ -5,7 +5,7 @@ GetFeaturesInArea / PosInGrid (reference src/Frame.cc:383-417, :655-724,
 import numpy as np
 import jax.numpy as jnp
 
-from extractorb_tpu.frontend import grid as fg
+from extractorb.frontend import grid as fg
 
 
 def _oracle_pos_in_grid(xy, bounds, rows, cols):

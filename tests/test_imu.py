@@ -3,8 +3,8 @@
 import jax.numpy as jnp
 import numpy as np
 
-from extractorb_tpu.core import lie
-from extractorb_tpu.imu import preintegration as pre
+from extractorb.core import lie
+from extractorb.imu import preintegration as pre
 
 G = np.array([0.0, 0.0, -9.81])
 

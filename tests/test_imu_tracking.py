@@ -7,13 +7,13 @@ arrays (the layer test_inertial.py stops below)."""
 import jax.numpy as jnp
 import numpy as np
 
-from extractorb_tpu.config import IMUConfig
-from extractorb_tpu.core import lie
-from extractorb_tpu.imu import preintegration as pre
-from extractorb_tpu.imu.calib import ImuCalib
-from extractorb_tpu.slam import imu_frontend
-from extractorb_tpu.slam.map import SLAMMap, KeyFrame
-from extractorb_tpu.solver import inertial as vi
+from extractorb.config import IMUConfig
+from extractorb.core import lie
+from extractorb.imu import preintegration as pre
+from extractorb.imu.calib import ImuCalib
+from extractorb.slam import imu_frontend
+from extractorb.slam.map import SLAMMap, KeyFrame
+from extractorb.solver import inertial as vi
 
 G = 9.81
 IMU_HZ = 200.0
@@ -211,7 +211,7 @@ def test_initialize_imu_recovers_scale_and_gravity():
 def test_chain_repair_on_keyframe_cull():
     calib = make_calib()
     mp, _ = _build_scaled_map(calib, n_kf=6)
-    from extractorb_tpu.slam.local_mapping import LocalMapper
+    from extractorb.slam.local_mapping import LocalMapper
 
     lm = LocalMapper(project, (1.0,), (1.0,), np.eye(3, dtype=np.float32),
                      imu_calib=calib)

@@ -11,9 +11,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from extractorb_tpu.core import lie
-from extractorb_tpu.imu import preintegration as pre
-from extractorb_tpu.solver import inertial as vi
+from extractorb.core import lie
+from extractorb.imu import preintegration as pre
+from extractorb.solver import inertial as vi
 
 G = 9.81
 IMU_HZ = 200.0

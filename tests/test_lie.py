@@ -6,7 +6,7 @@ import numpy as np
 import pytest
 from scipy.spatial.transform import Rotation as Rsp
 
-from extractorb_tpu.core import lie
+from extractorb.core import lie
 
 @pytest.fixture(autouse=True)
 def _x64():

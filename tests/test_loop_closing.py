@@ -7,11 +7,11 @@ import numpy as np
 import pytest
 import jax.numpy as jnp
 
-from extractorb_tpu.core import lie
-from extractorb_tpu.frontend.extractor import Features
-from extractorb_tpu.place.vocab import Vocabulary
-from extractorb_tpu.slam.loop_closing import LoopCloser, LoopThresholds
-from extractorb_tpu.slam.map import KeyFrame, SLAMMap
+from extractorb.core import lie
+from extractorb.frontend.extractor import Features
+from extractorb.place.vocab import Vocabulary
+from extractorb.slam.loop_closing import LoopCloser, LoopThresholds
+from extractorb.slam.map import KeyFrame, SLAMMap
 
 FX, FY, CX, CY = 500.0, 500.0, 320.0, 240.0
 
@@ -179,8 +179,8 @@ def test_inertial_loop_preserves_gravity(rng):
     graph (reference Optimizer.cc:8153, call site LoopClosing.cc
     inertial branch): the correction applied to every keyframe must be
     yaw-only — roll/pitch (gravity alignment) survive exactly."""
-    from extractorb_tpu.config import IMUConfig
-    from extractorb_tpu.imu.calib import ImuCalib
+    from extractorb.config import IMUConfig
+    from extractorb.imu.calib import ImuCalib
 
     mp, pts, desc = build_looped_map(rng)
     mp.imu_initialized = True
@@ -201,7 +201,7 @@ def test_inertial_loop_preserves_gravity(rng):
     assert closed, "loop not detected"
 
     import jax.numpy as jnp
-    from extractorb_tpu.core import lie
+    from extractorb.core import lie
     for k, kf in mp.keyframes.items():
         R0, _ = pre[k]
         dR = R0 @ kf.R.T           # world-side correction rotation

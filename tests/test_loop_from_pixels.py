@@ -4,79 +4,24 @@ through the full System with a trained vocabulary; the loop closer must
 detect the revisit and correct the map (reference flow:
 src/LoopClosing.cc:56-248)."""
 
-import cv2
 import numpy as np
 import pytest
 import jax.numpy as jnp
 
-from extractorb_tpu.config import (
+from extractorb.config import (
     CameraConfig, ORBConfig, SLAMConfig, TrackingConfig,
 )
-from extractorb_tpu.core import lie
-from extractorb_tpu.frontend.extractor import ORBExtractor
-from extractorb_tpu.place.vocab import Vocabulary
-from extractorb_tpu.slam.system import System
-from extractorb_tpu.slam.tracking import TrackState
+from extractorb.frontend.extractor import ORBExtractor
+from extractorb.place.vocab import Vocabulary
+from extractorb.slam.system import System
+from extractorb.slam.tracking import TrackState
 
-from test_slam_e2e import render_sequence, umeyama_align, W, H
-
-K = np.array([[500.0, 0, 320], [0, 500, 240], [0, 0, 1]], np.float64)
-
-
-def render_loop_sequence(tex, n_frames=40):
-    """Out-and-back sweep over a WIDE wall: the camera translates and
-    yaws far enough that the turnaround view shares no scene content
-    with the start, so the covisibility graph genuinely breaks between
-    the outbound and return segments — otherwise every keyframe stays
-    connected and no loop-closure is ever needed (the reference's
-    candidate query excludes covisible keyframes the same way)."""
-    half = n_frames // 2
-    # wall plane z=5 spanning x in [-3.4, 10.6], y in [-3, 3]; the
-    # texture is stretched to the 14 m span (tiling would repeat the
-    # texture and manufacture perceptual aliasing / false loops)
-    if tex.shape[1] < 4096:
-        tex = cv2.resize(tex, (4096, tex.shape[0]))
-    A_far = np.array(
-        [[14.0 / tex.shape[1], 0, -3.4],
-         [0, 6.0 / tex.shape[0], -3.0],
-         [0, 0, 5.0]], np.float64,
-    )
-    tex_near = cv2.flip(tex, 1)
-    s_near = 1.6 / tex.shape[0]
-    A_near = np.array(
-        [[s_near, 0, -1.1], [0, s_near, -0.8], [0, 0, 3.0]], np.float64
-    )
-    ones = np.full_like(tex, 255)
-    e3 = np.array([[0.0, 0.0, 1.0]])
-    frames, poses = [], []
-    for k in range(n_frames):
-        j = k if k < half else (n_frames - 1 - k)
-        ang = 0.008 * j
-        R = np.asarray(lie.so3_exp(jnp.asarray([0.0, ang, 0.0])))
-        # dominant lateral sweep: the turnaround view [3.5, 10.1] shares
-        # nothing with the start view [-3.2, 3.2] on the z=5 wall
-        C = np.array([0.35 * j, 0.012 * j, 0.01 * j])
-        t = -R @ C
-        img = cv2.warpPerspective(
-            tex, K @ (R @ A_far + t[:, None] @ e3), (W, H),
-            flags=cv2.INTER_LINEAR, borderMode=cv2.BORDER_REPLICATE,
-        )
-        near = cv2.warpPerspective(
-            tex_near, K @ (R @ A_near + t[:, None] @ e3), (W, H),
-            flags=cv2.INTER_LINEAR,
-        )
-        mask = cv2.warpPerspective(
-            ones, K @ (R @ A_near + t[:, None] @ e3), (W, H),
-            flags=cv2.INTER_NEAREST,
-        )
-        img = np.where(mask > 128, near, img)
-        frames.append(img)
-        poses.append((R, t))
-    return frames, poses
-
+from extractorb.sim.scenes import (
+    H, W, render_loop_sequence, texture, umeyama_align,
+)
 
 @pytest.mark.slow
-def test_place_recognition_merge_from_pixels(luna_gray):
+def test_place_recognition_merge_from_pixels():
     """BASELINE config 4 stand-in, end-to-end from pixels: the camera
     sweeps out over a wide wall, a blackout at the turnaround severs
     tracking into a fresh Atlas map, and on the way back place
@@ -86,8 +31,7 @@ def test_place_recognition_merge_from_pixels(luna_gray):
     re-associated by the local-map search before any loop is needed —
     the reference's bAbortByNearKF gate fires — so the genuine
     pixels-to-correction path here is the Atlas merge.)"""
-    tex = cv2.resize(luna_gray, (2048, 1024))
-    frames, poses = render_loop_sequence(tex, n_frames=40)
+    frames, poses = render_loop_sequence(texture(1, (1024, 4096)), n_frames=40)
 
     # vocabulary trained on the sequence's own ORB descriptors
     ext = ORBExtractor(ORBConfig(n_features=1000), octree="device")

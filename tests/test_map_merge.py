@@ -6,11 +6,11 @@ map is welded into it."""
 import numpy as np
 import jax.numpy as jnp
 
-from extractorb_tpu.core import lie
-from extractorb_tpu.place.vocab import Vocabulary
-from extractorb_tpu.slam import merge as mg
-from extractorb_tpu.slam.loop_closing import LoopCloser
-from extractorb_tpu.slam.map import Atlas, KeyFrame, SLAMMap
+from extractorb.core import lie
+from extractorb.place.vocab import Vocabulary
+from extractorb.slam import merge as mg
+from extractorb.slam.loop_closing import LoopCloser
+from extractorb.slam.map import Atlas, KeyFrame, SLAMMap
 
 from test_loop_closing import FX, FY, CX, CY, make_features, project
 

@@ -5,8 +5,8 @@ creation, movement, invalidation, and map switches."""
 import numpy as np
 import pytest
 
-from extractorb_tpu.slam.map import SLAMMap
-from extractorb_tpu.slam.track_device import MapMirror
+from extractorb.slam.map import SLAMMap
+from extractorb.slam.track_device import MapMirror
 
 
 def _reference_state(mp, cap):

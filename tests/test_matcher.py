@@ -7,9 +7,9 @@ import cv2
 import numpy as np
 import jax.numpy as jnp
 
-from extractorb_tpu.config import ORBConfig
-from extractorb_tpu.frontend import extractor as fext
-from extractorb_tpu.frontend import matcher as fmatch
+from extractorb.config import ORBConfig
+from extractorb.frontend import extractor as fext
+from extractorb.frontend import matcher as fmatch
 
 
 def np_hamming(d1, d2):

@@ -5,7 +5,7 @@ are node ids with the implicit root at id 0)."""
 
 import numpy as np
 
-from extractorb_tpu.place.vocab import (
+from extractorb.place.vocab import (
     Vocabulary, load_orbvoc_text, save_orbvoc_text,
 )
 

@@ -8,17 +8,16 @@ trajectory as synchronous runs, flush() settles everything, and a frame
 that fails its gates is replayed through the legacy state machine.
 """
 
-import cv2
 import numpy as np
 import pytest
 
-from extractorb_tpu.config import (
+from extractorb.config import (
     CameraConfig, ORBConfig, SLAMConfig, TrackingConfig,
 )
-from extractorb_tpu.slam.system import System
-from extractorb_tpu.slam.tracking import TrackState
+from extractorb.slam.system import System
+from extractorb.slam.tracking import TrackState
 
-from test_slam_e2e import render_sequence, umeyama_align, W, H
+from extractorb.sim.scenes import H, W, render_sequence, umeyama_align
 
 
 def _cfg(depth):
@@ -40,9 +39,8 @@ def _ate(sys_, poses):
 
 
 @pytest.mark.slow
-def test_pipelined_matches_synchronous(luna_gray):
-    tex = cv2.resize(luna_gray, (1024, 1024))
-    frames, poses = render_sequence(tex, n_frames=12)
+def test_pipelined_matches_synchronous(scene_texture):
+    frames, poses = render_sequence(scene_texture, n_frames=12)
     results = {}
     for depth in (0, 3):
         s = System(_cfg(depth))
@@ -59,12 +57,11 @@ def test_pipelined_matches_synchronous(luna_gray):
 
 
 @pytest.mark.slow
-def test_pipelined_failure_replays_through_legacy(luna_gray):
+def test_pipelined_failure_replays_through_legacy(scene_texture):
     """Black frames mid-batch fail the fused gates; the tracker must
     settle in-flight frames through the legacy path (RECENTLY_LOST /
     relocalization) without crashing, then re-track."""
-    tex = cv2.resize(luna_gray, (1024, 1024))
-    frames, poses = render_sequence(tex, n_frames=12)
+    frames, poses = render_sequence(scene_texture, n_frames=12)
     bad = np.zeros_like(frames[0])
     seq = frames[:7] + [bad, bad] + frames[7:]
 

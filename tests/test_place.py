@@ -6,10 +6,10 @@ import numpy as np
 import pytest
 import jax.numpy as jnp
 
-from extractorb_tpu.config import ORBConfig
-from extractorb_tpu.frontend.extractor import ORBExtractor
-from extractorb_tpu.place.database import KeyFrameDatabase
-from extractorb_tpu.place.vocab import Vocabulary, _hamming_np
+from extractorb.config import ORBConfig
+from extractorb.frontend.extractor import ORBExtractor
+from extractorb.place.database import KeyFrameDatabase
+from extractorb.place.vocab import Vocabulary, _hamming_np
 
 
 @pytest.fixture(scope="module")

@@ -3,9 +3,9 @@ KeyFrameDatabase): exact same candidates as the host CSR pass."""
 
 import numpy as np
 
-from extractorb_tpu.dist import mesh as dmesh
-from extractorb_tpu.place.database import KeyFrameDatabase
-from extractorb_tpu.place.vocab import Vocabulary
+from extractorb.dist import mesh as dmesh
+from extractorb.place.database import KeyFrameDatabase
+from extractorb.place.vocab import Vocabulary
 
 
 def _make_db(rng, device=False):

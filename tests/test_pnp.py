@@ -7,8 +7,8 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from extractorb_tpu.core import lie
-from extractorb_tpu.solver import pnp
+from extractorb.core import lie
+from extractorb.solver import pnp
 
 
 def _scene(rng, n=200, n_out=60):
@@ -133,7 +133,7 @@ def test_mlpnp_recovers_pose_with_off_axis_bearings(rng):
     """MLPnP (nullspace bearings) recovers a pose from a fisheye-like
     field of view INCLUDING rays >87 deg off-axis that a z=1 projection
     cannot express (the reference MLPnPsolver's raison d'etre)."""
-    from extractorb_tpu.core import lie
+    from extractorb.core import lie
 
     N = 120
     # points spread over more than a hemisphere around the camera
@@ -169,7 +169,7 @@ def test_mlpnp_recovers_pose_with_off_axis_bearings(rng):
 
 
 def test_mlpnp_robust_to_outliers(rng):
-    from extractorb_tpu.core import lie
+    from extractorb.core import lie
 
     N = 100
     dirs = rng.normal(size=(N, 3))

@@ -16,11 +16,11 @@ import cv2
 import numpy as np
 import pytest
 
-from extractorb_tpu.config import (
+from extractorb.config import (
     CameraConfig, ORBConfig, SLAMConfig, TrackingConfig,
 )
-from extractorb_tpu.slam.system import System
-from extractorb_tpu.slam.tracking import TrackState
+from extractorb.slam.system import System
+from extractorb.slam.tracking import TrackState
 
 ROBOT_DIR = "/root/reference/pic/robot"
 TUM_DIR = "/root/reference/pic/TUM/dataset-corridor2_512_16"

@@ -1,22 +1,20 @@
 """Relocalization after tracking loss + map checkpoint roundtrip."""
 
-import cv2
 import numpy as np
 import pytest
 import jax.numpy as jnp
 
-from extractorb_tpu.config import CameraConfig, ORBConfig, SLAMConfig, TrackingConfig
-from extractorb_tpu.slam import checkpoint as ckpt
-from extractorb_tpu.slam.system import System
-from extractorb_tpu.slam.tracking import TrackState
+from extractorb.config import CameraConfig, ORBConfig, SLAMConfig, TrackingConfig
+from extractorb.slam import checkpoint as ckpt
+from extractorb.slam.system import System
+from extractorb.slam.tracking import TrackState
 
-from test_slam_e2e import render_sequence, W, H
+from extractorb.sim.scenes import H, W, render_sequence
 
 
 @pytest.fixture(scope="module")
-def scene(luna_gray):
-    tex = cv2.resize(luna_gray, (1024, 1024))
-    return render_sequence(tex, n_frames=12)
+def scene(scene_texture):
+    return render_sequence(scene_texture, n_frames=12)
 
 
 def run_system(scene, interrupt=False):

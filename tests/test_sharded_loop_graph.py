@@ -5,8 +5,8 @@ built over ALL keyframes, Optimizer.cc:2303)."""
 
 import numpy as np
 
-from extractorb_tpu.place.vocab import Vocabulary
-from extractorb_tpu.slam.loop_closing import LoopCloser, LoopThresholds
+from extractorb.place.vocab import Vocabulary
+from extractorb.slam.loop_closing import LoopCloser, LoopThresholds
 
 from test_loop_closing import build_looped_map, project
 

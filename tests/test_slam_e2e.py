@@ -1,95 +1,23 @@
 """End-to-end monocular SLAM on a synthetic planar scene with known
 ground-truth poses (milestone M1, BASELINE config 3 analog).
 
-A textured plane is rendered through a moving pinhole camera with
-cv2.warpPerspective; the tracker must initialise, track every frame and
-produce a trajectory whose Sim3-aligned ATE is small.
+A seeded textured two-plane scene is rendered through a moving pinhole
+camera (extractorb.sim.scenes); the tracker must initialise, track every
+frame and produce a trajectory whose Sim3-aligned ATE is small.
 """
 
-import cv2
 import numpy as np
 import pytest
 
-from extractorb_tpu.config import CameraConfig, ORBConfig, SLAMConfig, TrackingConfig
-from extractorb_tpu.core import lie
-from extractorb_tpu.slam.system import System
-from extractorb_tpu.slam.tracking import TrackState
-
-import jax.numpy as jnp
-
-W, H = 640, 480
-K = np.array([[500.0, 0, 320], [0, 500, 240], [0, 0, 1]], np.float64)
-
-
-def render_sequence(tex, n_frames=14, speed=0.12):
-    """Camera translating in front of a two-plane scene (far wall z=5 and
-    a near poster z=3) — real 3D structure, so the fundamental path of
-    two-view init is well-posed (a single plane is H-ambiguous).
-
-    ``speed`` is the per-frame lateral translation; rotation scales with
-    it so longer sequences (smaller speed, more frames) stay inside the
-    textured volume."""
-    s_far = 5.0 / tex.shape[0]
-    A_far = np.array(
-        [[s_far, 0, -2.5], [0, s_far, -2.5], [0, 0, 5.0]], np.float64
-    )
-    tex_near = cv2.flip(tex, 1)
-    s_near = 1.6 / tex.shape[0]
-    A_near = np.array(
-        [[s_near, 0, -1.1], [0, s_near, -0.8], [0, 0, 3.0]], np.float64
-    )
-    ones = np.full_like(tex, 255)
-    e3 = np.array([[0.0, 0.0, 1.0]])
-    frames, poses = [], []
-    sc = speed / 0.12
-    for k in range(n_frames):
-        ang = 0.015 * sc * k
-        w = np.array([0.0, ang, 0.0])
-        R = np.asarray(lie.so3_exp(jnp.asarray(w)))
-        C = np.array([speed * k, 0.015 * sc * k, 0.01 * sc * k])
-        t = -R @ C
-
-        def warp(texture, A):
-            M = K @ (R @ A + t[:, None] @ e3)
-            return cv2.warpPerspective(
-                texture, M, (W, H), flags=cv2.INTER_LINEAR,
-                borderMode=cv2.BORDER_REPLICATE,
-            )
-
-        img = warp(tex, A_far)
-        M_near = K @ (R @ A_near + t[:, None] @ e3)
-        near = cv2.warpPerspective(tex_near, M_near, (W, H), flags=cv2.INTER_LINEAR)
-        mask = cv2.warpPerspective(ones, M_near, (W, H), flags=cv2.INTER_NEAREST)
-        img = np.where(mask > 128, near, img)
-        frames.append(img)
-        poses.append((R, t))
-    return frames, poses
-
-
-def umeyama_align(est, gt, return_scale=False):
-    """Sim3 alignment (scale, R, t) of est onto gt; returns aligned est
-    (and the recovered scale when return_scale)."""
-    mu_e, mu_g = est.mean(0), gt.mean(0)
-    xe, xg = est - mu_e, gt - mu_g
-    cov = xg.T @ xe / len(est)
-    U, D, Vt = np.linalg.svd(cov)
-    S = np.eye(3)
-    if np.linalg.det(U) * np.linalg.det(Vt) < 0:
-        S[2, 2] = -1
-    R = U @ S @ Vt
-    var_e = (xe ** 2).sum() / len(est)
-    s = np.trace(np.diag(D) @ S) / var_e
-    t = mu_g - s * R @ mu_e
-    aligned = (s * (R @ est.T)).T + t
-    if return_scale:
-        return aligned, s
-    return aligned
+from extractorb.config import CameraConfig, ORBConfig, SLAMConfig, TrackingConfig
+from extractorb.sim.scenes import H, W, render_sequence, umeyama_align
+from extractorb.slam.system import System
+from extractorb.slam.tracking import TrackState
 
 
 @pytest.mark.slow
-def test_mono_slam_planar_sequence(luna_gray):
-    tex = cv2.resize(luna_gray, (1024, 1024))
-    frames, poses = render_sequence(tex)
+def test_mono_slam_planar_sequence(scene_texture):
+    frames, poses = render_sequence(scene_texture)
 
     cfg = SLAMConfig(
         orb=ORBConfig(n_features=1000),
@@ -128,9 +56,8 @@ def test_mono_slam_planar_sequence(luna_gray):
     assert ate < 0.05 * max(scene_scale, 1.0), (ate, scene_scale)
 
 
-def test_trajectory_saver(tmp_path, luna_gray):
-    tex = cv2.resize(luna_gray, (1024, 1024))
-    frames, _ = render_sequence(tex, n_frames=4)
+def test_trajectory_saver(tmp_path, scene_texture):
+    frames, _ = render_sequence(scene_texture, n_frames=4)
     cfg = SLAMConfig(
         camera=CameraConfig(fx=500.0, fy=500.0, cx=320.0, cy=240.0,
                             width=W, height=H),

@@ -6,88 +6,15 @@ optimisation (3-dim residuals), close-point keyframe insertion, and the
 metric scale these sensors pin down (checked against ground truth).
 """
 
-import cv2
 import numpy as np
 import pytest
 
-from extractorb_tpu.config import (
+from extractorb.config import (
     CameraConfig, ORBConfig, SLAMConfig, TrackingConfig,
 )
-from extractorb_tpu.slam.system import System
-from extractorb_tpu.slam.tracking import TrackState
-
-from test_slam_e2e import K, W, H, render_sequence, umeyama_align
-
-BASELINE = 0.1          # metres
-BF = 500.0 * BASELINE   # Camera.bf
-
-
-def make_depth(R, t, near_mask):
-    """Analytic per-pixel depth of the two-plane scene (far wall z=5,
-    near poster z=3).  Camera-frame depth of the ray through pixel p is
-    lambda with C_z + lambda * d_wz = z_plane, d_w = R^T K^-1 p."""
-    C = -R.T @ t
-    us, vs = np.meshgrid(np.arange(W), np.arange(H))
-    pix = np.stack([us, vs, np.ones_like(us)], -1).astype(np.float64)
-    d_c = pix @ np.linalg.inv(K).T      # (H,W,3), z component = 1
-    d_w = d_c @ R                        # R^T d_c
-    z_plane = np.where(near_mask, 3.0, 5.0)
-    lam = (z_plane - C[2]) / d_w[..., 2]
-    return np.clip(lam, 0.1, 100.0).astype(np.float32)
-
-
-def render_rgbd(tex, n_frames=10):
-    frames, poses = render_sequence(tex, n_frames)
-    # recompute the near-poster mask exactly like render_sequence
-    from extractorb_tpu.core import lie
-    import jax.numpy as jnp
-
-    s_near = 1.6 / tex.shape[0]
-    A_near = np.array(
-        [[s_near, 0, -1.1], [0, s_near, -0.8], [0, 0, 3.0]], np.float64
-    )
-    ones = np.full_like(tex, 255)
-    e3 = np.array([[0.0, 0.0, 1.0]])
-    depths = []
-    for k, (R, t) in enumerate(poses):
-        M_near = K @ (R @ A_near + t[:, None] @ e3)
-        mask = cv2.warpPerspective(
-            ones, M_near, (W, H), flags=cv2.INTER_NEAREST
-        ) > 128
-        depths.append(make_depth(R, t, mask))
-    return frames, depths, poses
-
-
-def _render_stereo_pair(luna_tex, n_frames):
-    """Left/right rectified pair: right camera displaced by BASELINE
-    along camera x."""
-    frames_l, poses = render_sequence(luna_tex, n_frames)
-    s_far = 5.0 / luna_tex.shape[0]
-    A_far = np.array(
-        [[s_far, 0, -2.5], [0, s_far, -2.5], [0, 0, 5.0]], np.float64
-    )
-    tex_near = cv2.flip(luna_tex, 1)
-    s_near = 1.6 / luna_tex.shape[0]
-    A_near = np.array(
-        [[s_near, 0, -1.1], [0, s_near, -0.8], [0, 0, 3.0]], np.float64
-    )
-    ones = np.full_like(luna_tex, 255)
-    e3 = np.array([[0.0, 0.0, 1.0]])
-    frames_r = []
-    for k, (R, t) in enumerate(poses):
-        t_r = t - np.array([BASELINE, 0.0, 0.0])
-        M = K @ (R @ A_far + t_r[:, None] @ e3)
-        img = cv2.warpPerspective(
-            luna_tex, M, (W, H), flags=cv2.INTER_LINEAR,
-            borderMode=cv2.BORDER_REPLICATE,
-        )
-        M_near = K @ (R @ A_near + t_r[:, None] @ e3)
-        near = cv2.warpPerspective(tex_near, M_near, (W, H),
-                                   flags=cv2.INTER_LINEAR)
-        mask = cv2.warpPerspective(ones, M_near, (W, H),
-                                   flags=cv2.INTER_NEAREST)
-        frames_r.append(np.where(mask > 128, near, img))
-    return frames_l, frames_r, poses
+from extractorb.slam.system import System
+from extractorb.slam.tracking import TrackState
+from extractorb.sim.scenes import BF, H, W, render_rgbd, render_stereo_pair
 
 
 def _cfg():
@@ -102,15 +29,9 @@ def _cfg():
     )
 
 
-@pytest.fixture(scope="module")
-def luna_tex():
-    tex = cv2.imread("/root/reference/pic/luna.jpg", cv2.IMREAD_GRAYSCALE)
-    return cv2.resize(tex, (1024, 1024))
-
-
 @pytest.mark.slow
-def test_rgbd_e2e_metric_trajectory(luna_tex):
-    frames, depths, poses = render_rgbd(luna_tex, n_frames=10)
+def test_rgbd_e2e_metric_trajectory(scene_texture):
+    frames, depths, poses = render_rgbd(scene_texture, n_frames=10)
     s = System(_cfg())
     states = []
     for k, (img, dep) in enumerate(zip(frames, depths)):
@@ -136,41 +57,12 @@ def test_rgbd_e2e_metric_trajectory(luna_tex):
 
 
 @pytest.mark.slow
-def test_stereo_e2e_tracks(luna_tex):
+def test_stereo_e2e_tracks(scene_texture):
     """Stereo pair rendered with a second camera displaced by the
     baseline along camera x; track_stereo must initialise from disparity
     and keep tracking with metric scale."""
-    from extractorb_tpu.core import lie
-    import jax.numpy as jnp
-
     n_frames = 8
-    frames_l, poses = render_sequence(luna_tex, n_frames)
-    # right camera: C_r = C + R^T [b,0,0]
-    s_far = 5.0 / luna_tex.shape[0]
-    A_far = np.array(
-        [[s_far, 0, -2.5], [0, s_far, -2.5], [0, 0, 5.0]], np.float64
-    )
-    tex_near = cv2.flip(luna_tex, 1)
-    s_near = 1.6 / luna_tex.shape[0]
-    A_near = np.array(
-        [[s_near, 0, -1.1], [0, s_near, -0.8], [0, 0, 3.0]], np.float64
-    )
-    ones = np.full_like(luna_tex, 255)
-    e3 = np.array([[0.0, 0.0, 1.0]])
-    frames_r = []
-    for k, (R, t) in enumerate(poses):
-        t_r = t - np.array([BASELINE, 0.0, 0.0])  # camera-frame x shift
-        M = K @ (R @ A_far + t_r[:, None] @ e3)
-        img = cv2.warpPerspective(
-            luna_tex, M, (W, H), flags=cv2.INTER_LINEAR,
-            borderMode=cv2.BORDER_REPLICATE,
-        )
-        M_near = K @ (R @ A_near + t_r[:, None] @ e3)
-        near = cv2.warpPerspective(tex_near, M_near, (W, H),
-                                   flags=cv2.INTER_LINEAR)
-        mask = cv2.warpPerspective(ones, M_near, (W, H),
-                                   flags=cv2.INTER_NEAREST)
-        frames_r.append(np.where(mask > 128, near, img))
+    frames_l, frames_r, poses = render_stereo_pair(scene_texture, n_frames)
 
     cfg = _cfg()
     s = System(cfg)
@@ -190,15 +82,13 @@ def test_stereo_e2e_tracks(luna_tex):
 
 
 @pytest.mark.slow
-def test_stereo_pipelined_fused_path(luna_tex):
+def test_stereo_pipelined_fused_path(scene_texture):
     """Stereo through the fused/pipelined one-program path (stereo
     match + 3-dim stereo residuals in-program, close-point counters
     riding the confirmation fetch): same metric-scale accuracy as the
     synchronous path, and the fused path must actually engage."""
-    from test_slam_stereo_rgbd import _render_stereo_pair  # noqa: self
-
     n_frames = 10
-    frames_l, frames_r, poses = _render_stereo_pair(luna_tex, n_frames)
+    frames_l, frames_r, poses = render_stereo_pair(scene_texture, n_frames)
 
     cfg = _cfg()
     cfg = SLAMConfig(
@@ -228,11 +118,11 @@ def test_stereo_pipelined_fused_path(luna_tex):
 
 
 @pytest.mark.slow
-def test_rgbd_pipelined_fused_path(luna_tex):
+def test_rgbd_pipelined_fused_path(scene_texture):
     """RGBD through the fused path: the depth map rides the frame upload
     and is sampled at the raw keypoint coords in-program (reference
     ComputeStereoFromRGBD)."""
-    frames, depths, poses = render_rgbd(luna_tex, n_frames=10)
+    frames, depths, poses = render_rgbd(scene_texture, n_frames=10)
     base = _cfg()
     cfg = SLAMConfig(
         orb=base.orb, camera=base.camera,
@@ -256,13 +146,13 @@ def test_rgbd_pipelined_fused_path(luna_tex):
     assert abs(len_est / len_gt - 1.0) < 0.06, (len_est, len_gt)
 
 
-def test_th_far_points_gate(luna_tex):
+def test_th_far_points_gate(scene_texture):
     """thFarPoints (reference System.cc:183): stereo/RGBD observations
     deeper than the threshold never become map points."""
     # single init frame: the only creation path is the stereo/RGBD
     # depth unprojection the gate applies to (triangulated points are
     # legitimately allowed past thFarPoints, like the reference)
-    frames, depths, poses = render_rgbd(luna_tex, n_frames=1)
+    frames, depths, poses = render_rgbd(scene_texture, n_frames=1)
     base = _cfg()
     from dataclasses import replace
     for far, expect_far_points in ((0.0, True), (4.0, False)):

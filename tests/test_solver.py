@@ -4,9 +4,9 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from extractorb_tpu.core import lie
-from extractorb_tpu.solver import ba as sba
-from extractorb_tpu.solver import pose_opt as spo
+from extractorb.core import lie
+from extractorb.solver import ba as sba
+from extractorb.solver import pose_opt as spo
 
 FX, FY, CX, CY = 500.0, 500.0, 320.0, 240.0
 
@@ -225,7 +225,7 @@ def test_marginalize_condition_sparsify(rng):
     information."""
     import jax.numpy as jnp
 
-    from extractorb_tpu.solver import marginal as mg
+    from extractorb.solver import marginal as mg
 
     n = 9
     A = rng.normal(size=(n, n + 3)).astype(np.float32)
@@ -258,7 +258,7 @@ def test_schur_dense_matches_cg(rng):
     """The dense-Schur direct solver reaches the same fixed point as
     matrix-free CG (solver/ba.py solver= option)."""
     import jax.numpy as jnp
-    from extractorb_tpu.core import lie
+    from extractorb.core import lie
 
     Rs, ts, pts, obs = make_ba_scene(rng, n_kf=6, n_mp=120)
     K, P, O = len(Rs), len(pts), len(obs)

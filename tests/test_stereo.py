@@ -4,10 +4,10 @@ import cv2
 import numpy as np
 import jax.numpy as jnp
 
-from extractorb_tpu.config import ORBConfig
-from extractorb_tpu.frontend import stereo as fstereo
-from extractorb_tpu.frontend.extractor import ORBExtractor
-from extractorb_tpu.frontend.pyramid import compute_pyramid
+from extractorb.config import ORBConfig
+from extractorb.frontend import stereo as fstereo
+from extractorb.frontend.extractor import ORBExtractor
+from extractorb.frontend.pyramid import compute_pyramid
 
 
 def test_stereo_constant_disparity(luna_gray):

@@ -8,9 +8,9 @@ Frame::ComputeStereoFishEyeMatches (Frame.cc:1139).
 import numpy as np
 import jax.numpy as jnp
 
-from extractorb_tpu.config import CameraConfig
-from extractorb_tpu.core.camera import KannalaBrandt8, triangulate_matches
-from extractorb_tpu.frontend import stereo as fstereo
+from extractorb.config import CameraConfig
+from extractorb.core.camera import KannalaBrandt8, triangulate_matches
+from extractorb.frontend import stereo as fstereo
 
 TUMVI = CameraConfig(
     model="KannalaBrandt8",
@@ -129,8 +129,8 @@ def test_fisheye_stereo_tracking_smoke(luna_gray):
     import cv2
     import dataclasses as dc
 
-    from extractorb_tpu.config import ORBConfig, SLAMConfig, TrackingConfig
-    from extractorb_tpu.slam.tracking import Tracker
+    from extractorb.config import ORBConfig, SLAMConfig, TrackingConfig
+    from extractorb.slam.tracking import Tracker
 
     cam = dc.replace(TUMVI, bf=190.97 * 0.101, th_depth=35.0)
     cfg = SLAMConfig(

@@ -4,8 +4,8 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from extractorb_tpu.core import lie
-from extractorb_tpu.geometry import two_view as tv
+from extractorb.core import lie
+from extractorb.geometry import two_view as tv
 
 
 def make_scene(rng, n=300, noise=0.5, planar=False, n_out=30):

@@ -4,8 +4,8 @@ import cv2
 import numpy as np
 import jax.numpy as jnp
 
-from extractorb_tpu.utils.clahe import clahe
-from extractorb_tpu.utils.timing import StageTimer
+from extractorb.utils.clahe import clahe
+from extractorb.utils.timing import StageTimer
 
 
 def test_clahe_close_to_cv2(luna_gray):
@@ -36,13 +36,13 @@ def test_stage_timer(tmp_path):
 
 
 def test_package_forces_full_matmul_precision():
-    """TPU f32 matmuls default to one-pass bf16 operand rounding, which
-    silently breaks the pyramid's 11-bit fixed-point weights (verified on
-    hardware: ~20k wrong pixels per level).  Importing the package must
-    pin full-precision f32 matmuls."""
+    """With the default precision a GPU may run f32 matmuls in TF32
+    (10-bit mantissa), which the solvers' float32 tolerances do not
+    allow for.  Importing the package must pin full-precision f32
+    matmuls."""
     import jax
 
-    import extractorb_tpu  # noqa: F401
+    import extractorb  # noqa: F401
 
     assert jax.config.jax_default_matmul_precision == "highest"
 
@@ -53,11 +53,11 @@ def test_timestamp_guards():
     frame without corrupting state."""
     import numpy as np
 
-    from extractorb_tpu.config import (
+    from extractorb.config import (
         CameraConfig, ORBConfig, SLAMConfig, TrackingConfig,
     )
-    from extractorb_tpu.slam.system import System
-    from extractorb_tpu.slam.tracking import TrackState
+    from extractorb.slam.system import System
+    from extractorb.slam.tracking import TrackState
 
     rng = np.random.default_rng(0)
     img = rng.integers(0, 256, (480, 640), np.uint8)

@@ -1,107 +1,29 @@
 """Visual-inertial monocular e2e through the full System: rendered
-frames + analytically consistent IMU samples; the staged IMU
+frames + analytically consistent IMU samples (extractorb.sim.scenes); the staged IMU
 initialisation (reference LocalMapping.cc:162-219) must fire and
 recover METRIC scale (monocular-visual-only cannot).  Also covers
 checkpoint/resume of an inertial session mid-sequence."""
 
-import cv2
 import numpy as np
 import pytest
-import jax.numpy as jnp
 
-from extractorb_tpu.config import (
+from extractorb.config import (
     CameraConfig, IMUConfig, ORBConfig, SLAMConfig, TrackingConfig,
 )
-from extractorb_tpu.core import lie
-from extractorb_tpu.slam import checkpoint as ckpt
-from extractorb_tpu.slam.system import System
-from extractorb_tpu.slam.tracking import TrackState
+from extractorb.slam import checkpoint as ckpt
+from extractorb.slam.system import System
+from extractorb.slam.tracking import TrackState
 
-from test_slam_e2e import W, H, umeyama_align
+from extractorb.sim.scenes import (
+    H, VI_FPS as FPS, W, render_vi_sequence, umeyama_align, vi_imu_window,
+    vi_pose as _pose,
+)
 
-K = np.array([[500.0, 0, 320], [0, 500, 240], [0, 0, 1]], np.float64)
-G_W = np.array([0.0, -9.81, 0.0])
-FPS = 10.0          # frame spacing 0.1 s -> 4 s sequence in 40 frames
 IMU_HZ = 100.0
 
 
-AMP = np.array([0.70, 0.25, 0.12])
-OM = np.array([1.9, 1.4, 1.1])
-PH = np.array([0.0, 1.0, 0.5])
-
-
-def _pose(t):
-    """Analytic camera trajectory with rich acceleration: monocular-
-    inertial scale observability needs the accelerometer signal to
-    dominate the visual pose noise (the scale estimate of a fixed-pose
-    inertial-only solve shrinks toward zero otherwise)."""
-    ang = 0.10 * np.sin(0.9 * t)
-    C = AMP * np.sin(OM * t + PH) - AMP * np.sin(PH)
-    R = np.asarray(lie.so3_exp(jnp.asarray([0.0, ang, 0.0]))).astype(
-        np.float64
-    )
-    return R, (-R @ C)
-
-
-def _accel(t):
-    return -AMP * OM ** 2 * np.sin(OM * t + PH)
-
-
-def _vel(t):
-    return AMP * OM * np.cos(OM * t + PH)
-
-
-def _gyro(t):
-    # R_wb = exp(-ang(t) y_hat): omega_b = -ang'(t) * y
-    return np.array([0.0, -0.10 * 0.9 * np.cos(0.9 * t), 0.0])
-
-
 def _imu_window(t0, t1):
-    """(t, acc, gyro) samples in [t0, t1] at IMU_HZ (body == camera).
-    The boundary sample at t0 is included so the preintegration's first
-    clipped interval is covered (duplicates across windows collapse to
-    zero-length intervals in the queue)."""
-    out = []
-    n = int(round((t1 - t0) * IMU_HZ))
-    for i in range(0, n + 1):
-        t = t0 + i / IMU_HZ
-        R, _ = _pose(t)
-        acc = R @ (_accel(t) - G_W)
-        out.append((t, acc.astype(np.float32),
-                    _gyro(t).astype(np.float32)))
-    return out
-
-
-def render_vi_sequence(tex, n_frames=40):
-    s_far = 5.0 / tex.shape[0]
-    A_far = np.array(
-        [[s_far, 0, -2.5], [0, s_far, -2.5], [0, 0, 5.0]], np.float64
-    )
-    tex_near = cv2.flip(tex, 1)
-    s_near = 1.6 / tex.shape[0]
-    A_near = np.array(
-        [[s_near, 0, -1.1], [0, s_near, -0.8], [0, 0, 3.0]], np.float64
-    )
-    ones = np.full_like(tex, 255)
-    e3 = np.array([[0.0, 0.0, 1.0]])
-    frames, poses = [], []
-    for k in range(n_frames):
-        R, t = _pose(k / FPS)
-        img = cv2.warpPerspective(
-            tex, K @ (R @ A_far + t[:, None] @ e3), (W, H),
-            flags=cv2.INTER_LINEAR, borderMode=cv2.BORDER_REPLICATE,
-        )
-        near = cv2.warpPerspective(
-            tex_near, K @ (R @ A_near + t[:, None] @ e3), (W, H),
-            flags=cv2.INTER_LINEAR,
-        )
-        mask = cv2.warpPerspective(
-            ones, K @ (R @ A_near + t[:, None] @ e3), (W, H),
-            flags=cv2.INTER_NEAREST,
-        )
-        frames.append(np.where(mask > 128, near, img))
-        poses.append((R, t))
-    return frames, poses
+    return vi_imu_window(t0, t1, IMU_HZ)
 
 
 def _vi_cfg():
@@ -118,9 +40,8 @@ def _vi_cfg():
 
 
 @pytest.fixture(scope="module")
-def vi_scene(luna_gray):
-    tex = cv2.resize(luna_gray, (1024, 1024))
-    return render_vi_sequence(tex, n_frames=40)
+def vi_scene(scene_texture):
+    return render_vi_sequence(scene_texture, n_frames=40)
 
 
 @pytest.mark.slow

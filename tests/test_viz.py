@@ -2,9 +2,9 @@
 
 import numpy as np
 
-from extractorb_tpu.viz import FrameDrawer, MapDrawer
-from extractorb_tpu.viz.frame_drawer import GREEN
-from extractorb_tpu.viz.map_drawer import covisibility_segments, frustum_segments
+from extractorb.viz import FrameDrawer, MapDrawer
+from extractorb.viz.frame_drawer import GREEN
+from extractorb.viz.map_drawer import covisibility_segments, frustum_segments
 
 
 def test_frame_drawer_overlay(rng):
